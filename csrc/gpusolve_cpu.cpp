@@ -225,9 +225,7 @@ void jacobi_pingpong(Hierarchy& H, Level& L, std::int64_t sweeps) {
 }
 
 // Temporal (trapezoid) blocking of the Jacobi sweeps: ALL S sweeps of a
-// smoothing leg in ONE streaming pass — the host-side counterpart of the
-// TPU backend's communication-avoiding trapezoid kernel
-// (gpusolve_tpu/ops/pallas_spmd.multi_sweep_block).  Memory traffic per leg
+// smoothing leg in ONE streaming pass.  Memory traffic per leg
 // drops from S·(read v,f + write v) to ~1·(read v,f + write v): sweep s's
 // planes live in small per-tile ring strips that stay cache-resident.
 //

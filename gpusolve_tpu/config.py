@@ -7,8 +7,8 @@ README.md:19-33): maxiter, tol, grid dims, mode (0=linear, 1=nonlinear,
 (x, y, z) offsets, and the derived mesh width ``h = 1/(gridDim_y + 1)``.
 
 Everything here is static (hashable, frozen) so a ``GridParams`` can be closed
-over at trace time — the TPU analogue of the reference baking the mode branch
-into generated kernel source host-side (src/sycl/SyclSolver.cpp:182-196).
+over at trace time, as the reference bakes the mode branch into generated
+kernel source host-side (src/sycl/SyclSolver.cpp:182-196).
 """
 
 from __future__ import annotations
@@ -95,9 +95,8 @@ class GridParams:
     gamma: float
     stencil: Stencil
     print_progress: bool = True
-    # TPU-specific knobs (no reference equivalent):
-    dtype: str = "float32"  # "float32" | "float64" (f64 emulated on TPU)
-    backend: str = "auto"  # op backend: "auto" | "xla" | "pallas"
+    # Storage dtype (no reference equivalent; the reference is double).
+    dtype: str = "float32"  # "float32" | "float64"
     # Multigrid cycling schedule (beyond-reference: the reference only has
     # V-cycles, src/cpu/CpuSolver.cpp:85-139).  "V" recurses once per
     # level, "W" twice, "F" recurses F-then-V (each coarse visit continues

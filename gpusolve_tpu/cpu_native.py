@@ -57,21 +57,6 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    # Seed the temporal-blocked smoother's strip budget from the tuning
-    # table (utils/tuning.cpu_strip_kb) unless the operator already set it
-    # — csrc reads the env var once, lazily, at its first fused sweep
-    # (csrc/gpusolve_cpu.cpp jacobi_fused), so this must land before any
-    # solve.  Tuning resolution must never block loading (e.g. no JAX
-    # backend on a bare host).
-    if "GPUSOLVE_CPU_STRIP_KB" not in os.environ:
-        try:
-            from gpusolve_tpu.utils import tuning
-
-            os.environ["GPUSOLVE_CPU_STRIP_KB"] = str(
-                tuning.current().cpu_strip_kb
-            )
-        except Exception:
-            pass
     with open(_CSRC, "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src).hexdigest()[:16]

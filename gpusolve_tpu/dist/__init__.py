@@ -1,15 +1,15 @@
-"""Multi-chip 3-D spatial domain decomposition.
+"""Multi-device 3-D spatial domain decomposition.
 
-The reference is single-process, single-device (SURVEY.md §2.3); this layer is
-the distribution capability the TPU build adds per BASELINE.json: each grid
-level is block-partitioned over a 3-D ``jax.sharding.Mesh`` of chips.  The
+The reference is single-process, single-device (SURVEY.md §2.3); this layer
+adds distribution: each grid level is block-partitioned over a 3-D
+``jax.sharding.Mesh`` of devices.  The
 stencil/transfer ops in gpusolve_tpu.ops are written as shifted-slice
 arithmetic, so under ``jit`` with sharded operands the XLA SPMD partitioner
 inserts the one-cell halo-exchange collective-permutes automatically — the
-same traced V-cycle runs single-chip or pod-sliced.
+same traced V-cycle runs on one device or many.
 
 Coarse levels below a per-shard size threshold are explicitly *replicated*
-(every chip redundantly smooths the tiny coarse grids): the multigrid analogue
+(every device redundantly smooths the tiny coarse grids): the multigrid analogue
 of pipeline-stage consolidation, avoiding halo messages larger than the level
 itself (SURVEY.md §5 "long-context" note).
 
@@ -25,9 +25,9 @@ applications are overlap-structured (interior from the local block, faces
 patched from the ghosts) so the permutes can run concurrently with interior
 compute.
 
-Multi-host: gpusolve_tpu.dist.multihost wraps ``jax.distributed.initialize``
-and builds ICI-topology-aware meshes (hosts stacked along one DCN axis);
-bench_multichip.py at the repo root is the scaling harness.
+Multi-process: gpusolve_tpu.dist.multihost wraps
+``jax.distributed.initialize``; bench_multichip.py at the repo root is the
+scaling harness.
 """
 
 from gpusolve_tpu.dist.mesh import factor_devices, make_mesh

@@ -3,8 +3,8 @@
 Replaces the reference's device discovery (src/sycl/ContextHandles.h:7-44,
 which enumerates OpenCL platforms and picks the last GPU) with
 ``jax.devices()`` + a 3-D ``jax.sharding.Mesh`` whose axes ('x','y','z')
-partition the grid's spatial axes.  On a pod slice the mesh should follow the
-physical ICI topology so halo permutes ride neighbour links.
+partition the grid's spatial axes.  The cards of one host are joined all to
+all (NVLink), so the mesh follows the decomposition alone.
 """
 
 from __future__ import annotations

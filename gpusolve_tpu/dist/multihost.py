@@ -1,37 +1,28 @@
-"""Multi-host (multi-process) initialisation and ICI-topology-aware meshes.
+"""Multi-process initialisation.
 
 The reference is strictly single-process (SURVEY.md §2.3: no NCCL/MPI/
-anything); this module is the TPU-native scaling entry point the blueprint
-adds: ``jax.distributed.initialize`` to form the global runtime across
-hosts, and device meshes laid out so halo ``ppermute``s ride neighbour ICI
-links within a slice while only one mesh axis crosses the (slow) DCN between
-hosts.
+anything); ``initialize`` joins the global JAX runtime across processes,
+after which ``dist.make_mesh`` spans every global device.
 
 Usage (one call near the top of every process)::
 
-    from gpusolve_tpu.dist import multihost
-    multihost.initialize()               # env-driven (JAX_COORDINATOR_...)
-    mesh = multihost.make_topology_mesh()  # all global devices, 3-D axes
+    from gpusolve_tpu.dist import multihost, make_mesh
+    multihost.initialize()   # env-driven (JAX_COORDINATOR_ADDRESS, ...)
+    mesh = make_mesh()       # all global devices, 3-D axes
 
-On a single process both calls degrade gracefully: ``initialize`` is a no-op
-and the mesh reduces to ``mesh.make_mesh``'s balanced factoring.
+On a single process ``initialize`` is a no-op.
 
 CPU smoke path: the same code runs multi-process on CPU backends
 (``JAX_PLATFORMS=cpu`` + ``xla_force_host_platform_device_count``), which is
-how tests/test_multihost.py exercises the plumbing without a pod — real
-multi-chip hardware is not available in this environment (BASELINE.md).
+how tests/test_multihost.py exercises the plumbing.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import jax
-import numpy as np
-from jax.sharding import Mesh
-
-from gpusolve_tpu.dist.mesh import AXES, factor_devices
 
 _initialized = False
 
@@ -45,11 +36,10 @@ def initialize(
     """Join the multi-process JAX runtime (SURVEY.md §5 distributed row).
 
     Arguments default to the standard environment variables
-    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``;
-    on Cloud TPU pods ``jax.distributed.initialize()`` auto-discovers all of
-    them from the metadata server).  Returns True when a multi-process
-    runtime was (or already had been) initialised, False for the
-    single-process no-op case.
+    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``); no cluster environment is auto-detected.  Returns
+    True when a multi-process runtime was (or already had been)
+    initialised, False for the single-process no-op case.
     """
     global _initialized
     if _initialized:
@@ -64,7 +54,7 @@ def initialize(
     if process_id is None and env_pid is not None:
         process_id = int(env_pid)
     if coordinator_address is None and num_processes is None:
-        # Plain single-process run (the common case on this bench rig).
+        # Plain single-process run.
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -78,67 +68,3 @@ def initialize(
 
 def is_multiprocess() -> bool:
     return jax.process_count() > 1
-
-
-def make_topology_mesh(
-    shape: Optional[Tuple[int, int, int]] = None,
-    devices: Optional[Sequence[jax.Device]] = None,
-) -> Mesh:
-    """3-D ('x','y','z') mesh over all global devices, laid out by the
-    physical interconnect.
-
-    Within one slice ``mesh_utils.create_device_mesh`` orders devices along
-    the ICI torus so the spmd engine's face ``ppermute``s are neighbour
-    hops.  Across processes connected by DCN,
-    ``mesh_utils.create_hybrid_device_mesh`` keeps each host's devices in a
-    contiguous sub-block and stacks hosts along the *leading* ('x') axis:
-    each V-cycle then crosses DCN only with the two x-face planes per
-    exchange, the minimum possible (SURVEY.md §2.3 "ICI within a slice, DCN
-    between hosts").
-
-    Falls back to ``mesh.make_mesh``'s plain reshape whenever the topology
-    helpers reject the configuration (e.g. virtual CPU devices).
-    """
-    from jax.experimental import mesh_utils
-
-    from gpusolve_tpu.dist.mesh import make_mesh
-
-    if devices is None:
-        devices = jax.devices()
-    n = len(devices)
-    if shape is None:
-        shape = factor_devices(n)
-    try:
-        if is_multiprocess():
-            nproc = jax.process_count()
-            per_host = n // nproc
-            # Split the requested shape into (DCN granule) x (ICI granule):
-            # hosts stack along x first, then y/z if x is too small.
-            dcn = [1, 1, 1]
-            rem = nproc
-            for ax in range(3):
-                g = _gcd(shape[ax], rem)
-                dcn[ax] = g
-                rem //= g
-                if rem == 1:
-                    break
-            if rem != 1 or per_host * nproc != n:
-                raise ValueError("host count does not tile the mesh shape")
-            ici = tuple(shape[a] // dcn[a] for a in range(3))
-            dev_arr = mesh_utils.create_hybrid_device_mesh(
-                ici, tuple(dcn), devices=devices,
-                process_is_granule=True,
-            )
-        else:
-            dev_arr = mesh_utils.create_device_mesh(
-                shape, devices=np.asarray(devices)
-            )
-        return Mesh(dev_arr, AXES)
-    except Exception:
-        return make_mesh(shape, devices)
-
-
-def _gcd(a: int, b: int) -> int:
-    while b:
-        a, b = b, a % b
-    return a

@@ -1,14 +1,14 @@
 """Grid level hierarchy and analytic right-hand-side initialisation.
 
-TPU-native data model replacing the reference's ``CpuGridData``/``SyclGridData``
+Data model replacing the reference's ``CpuGridData``/``SyclGridData``
 (reference: src/cpu/CpuGridData.{h,cpp}, src/sycl/SyclGridData.{h,cpp}): each
 multigrid level is a set of padded, device-resident ``jnp`` arrays of static
 shape ``(nx+2, ny+2, nz+2)`` (1-cell halo on every face holding the Dirichlet
 boundary).  The whole hierarchy is a pytree (``GridState``) so it flows through
 ``jax.jit`` / ``shard_map`` unchanged.
 
-Layout: axis order (x, y, z) with z contiguous — the minor (lane) dimension on
-TPU.  The reference's two backends already disagree on layout (z-fastest
+Layout: axis order (x, y, z) with z contiguous (the minor dimension).  The
+reference's two backends already disagree on layout (z-fastest
 Vector3.cpp:16 vs x-fastest SyclBuffer.h:16-29); layout is free as long as the
 math matches.
 
@@ -46,14 +46,13 @@ def _round_up(n: int, m: int) -> int:
 
 
 def alloc_shape(dims) -> tuple:
-    """TPU-tile-aligned allocation shape for a level with interior ``dims``.
+    """Aligned allocation shape for a level with interior ``dims``.
 
     The logical padded extent is ``n+2`` per axis (1-cell Dirichlet halo);
-    allocation rounds x,y up to 8 and z up to 128 so (a) Mosaic DMA slices
-    are tile-aligned, (b) GSPMD shardings divide evenly for power-of-two
-    meshes, and (c) the physical HBM footprint equals the logical one (no
-    hidden layout padding — bandwidth accounting is honest).  Cells outside
-    the logical padded region are zero forever.
+    allocation rounds x,y up to 8 (so GSPMD shardings divide evenly for
+    power-of-two meshes) and z up to 128.  No kernel needs the z rounding
+    any more; whether dropping it pays on the device is an open measurement
+    (ROADMAP).  Cells outside the logical padded region are zero forever.
     """
     nx, ny, nz = dims
     return (_round_up(nx + 2, 8), _round_up(ny + 2, 8), _round_up(nz + 2, 128))

@@ -1,9 +1,4 @@
-"""Numerical kernels for the multigrid solver.
-
-Every op exists as a `jnp` implementation (``ops.xla``) that XLA fuses into
-TPU stencil kernels, and — for the bandwidth-critical smoother/residual path —
-as hand-written Pallas TPU kernels (``ops.pallas_kernels``).  ``ops.dispatch``
-picks per-op at trace time based on ``GridParams.backend`` and array shapes.
-"""
+"""Numerical kernels for the multigrid solver (``ops.xla``: `jnp` slice
+arithmetic that XLA fuses)."""
 
 from gpusolve_tpu.ops import xla  # noqa: F401

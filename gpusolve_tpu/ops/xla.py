@@ -1,14 +1,12 @@
-"""XLA (`jnp`) implementations of the multigrid kernels.
+"""The multigrid kernels as plain `jnp` slice arithmetic.
 
-These are the semantically-definitive implementations: static-shape slice
-arithmetic over padded arrays that XLA fuses into TPU stencil kernels.  The
-Pallas kernels in ``gpusolve_tpu.ops.pallas_kernels`` must match these at
-equal dtype; the test-suite oracle (tests/oracle.py) matches the reference
-C++ loop nest semantics.
+Static-shape slice arithmetic over padded arrays; XLA fuses each op into
+loop fusions on the device.  The test-suite oracle (tests/oracle.py)
+matches the reference C++ loop nest semantics.
 
 Array model: a field with interior dims ``(nx, ny, nz)`` lives in an array of
 *allocated* shape ``>= (nx+2, ny+2, nz+2)`` — a one-cell Dirichlet halo plus
-optional TPU tile-alignment padding (see gpusolve_tpu.grid.alloc_shape).
+optional alignment padding (see gpusolve_tpu.grid.alloc_shape).
 Every cell outside the interior is always zero; ops preserve that invariant.
 Logical interior dims are passed explicitly (``dims``) — never inferred from
 the array shape.
@@ -21,8 +19,8 @@ Numerics implemented (reference file:line cited per function):
   * 27-point full-weighting restriction   (src/cpu/CpuSolver.cpp:211-238)
   * 4-pass trilinear interpolation        (src/cpu/CpuSolver.cpp:240-290)
 
-All mode branching is resolved at trace time (the TPU analogue of the
-reference baking the mode into generated kernel source host-side,
+All mode branching is resolved at trace time (as the reference bakes the
+mode into generated kernel source host-side,
 src/sycl/SyclSolver.cpp:182-196).
 """
 

@@ -2,10 +2,9 @@
 float32 multigrid speed.
 
 Beyond-reference capability (the reference is ``double`` end-to-end,
-src/cpu/CpuSolver.cpp; TPUs have no f64 ALU and XLA's emulation costs ~10x).
-Instead of running the whole multigrid hierarchy in emulated f64, only the
-O(N) outer defect computation runs in f64 while every V-cycle — the actual
-work — runs on the float32 fast path (the wavefront mega-kernel on TPU):
+src/cpu/CpuSolver.cpp).  Instead of running the whole multigrid hierarchy in
+f64, only the O(N) outer defect computation runs in f64 while every V-cycle —
+the actual work — runs in float32:
 
 LINEAR mode — classical iterative refinement (Wilkinson):
     r = f − A·u/h²            float64, one stencil sweep
@@ -53,17 +52,6 @@ from gpusolve_tpu.ops import xla
 from gpusolve_tpu.solver import newton as newton_mod
 from gpusolve_tpu.solver import vcycle as vc
 from gpusolve_tpu.utils.timer import Timer
-
-
-def _x64_off():
-    """Trace/compile scope with x64 semantics disabled.
-
-    The inner solver is pure f32, but under global ``jax_enable_x64`` Python
-    int literals promote to i64 inside traced code — which Mosaic rejects
-    when they reach TPU kernel index operands (``tpu.memref_slice`` wants
-    i32).  Running the f32 inner machinery in an x64-off scope makes it
-    lower exactly as in a normal f32 process."""
-    return jax.enable_x64(False)
 
 
 def _params32(params: GridParams, inner_iters: int,
@@ -122,8 +110,7 @@ def _inject(v32: jax.Array, f32_old: jax.Array, r_hi: jax.Array,
 
 @functools.partial(jax.jit, static_argnames=("dims",), donate_argnums=(0,))
 def _accumulate(u_hi: jax.Array, e32: jax.Array, s: jax.Array, dims):
-    """u += s·e over the interior (f64; e's alignment tail may hold garbage
-    on the mega-kernel path, so only the logical interior is read)."""
+    """u += s·e over the interior (f64)."""
     nx, ny, nz = dims
     sl = (slice(1, nx + 1), slice(1, ny + 1), slice(1, nz + 1))
     return u_hi.at[sl].add(s * e32[sl].astype(u_hi.dtype))
@@ -177,18 +164,17 @@ def solve_refine(
 
     p32 = _params32(params, inner_iters, inner_tol)
     if state32 is None:
-        with _x64_off():
-            state32 = build_grid(p32)
-            if shardings is not None:
-                from gpusolve_tpu.dist.sharding import shard_state
+        state32 = build_grid(p32)
+        if shardings is not None:
+            from gpusolve_tpu.dist.sharding import shard_state
 
-                state32 = shard_state(state32, shardings)
+            state32 = shard_state(state32, shardings)
     if state32.newton_f is not None:
         # The inner Jacobian solves never read newton_f (only the outer
         # newton_solve driver does), and build_grid aliases it to the same
         # buffer as levels[0].f — which _inject donates each outer step.
         state32 = dataclasses.replace(state32, newton_f=None)
-    tp32 = vc.trace_params(p32, shardings)
+    tp32 = vc.trace_params(p32)
 
     u = jnp.zeros(alloc_shape(dims), jnp.float64)
     f_hi = hi_rhs(params)
@@ -221,18 +207,14 @@ def solve_refine(
             state32,
             levels=(dataclasses.replace(lvl0, **kw),) + state32.levels[1:],
         )
-        with _x64_off():
-            if newton:
-                # Restrict the frozen linearisation point to levels 1..L-2
-                # — never the coarsest (the reference quirk,
-                # src/cpu/NewtonSolver.cpp:88-92).
-                state32 = newton_mod._prepare_find_error(
-                    state32, params=tp32, shardings=shardings
-                )
-            state32, _ = vc.solve(
-                state32, p32, shardings=shardings, timer=timer,
-                check_every=inner_iters,
+        if newton:
+            # Restrict the frozen linearisation point to levels 1..L-2
+            # — never the coarsest (the reference quirk,
+            # src/cpu/NewtonSolver.cpp:88-92).
+            state32 = newton_mod._prepare_find_error(
+                state32, params=tp32, shardings=shardings
             )
+        state32, _ = vc.solve(state32, p32, shardings=shardings, timer=timer)
         u = _accumulate(u, state32.levels[0].v, s, dims)
         r_hi, res = _hi_residual(u, f_hi, hk)
         if timer is not None:
@@ -253,7 +235,7 @@ def solve_refine(
 
 
 # ---------------------------------------------------------------------------
-# Distributed refinement on the explicit spmd engine (round-3 item 7)
+# Distributed refinement on the explicit spmd engine
 # ---------------------------------------------------------------------------
 
 
@@ -291,15 +273,10 @@ def solve_refine_spmd(
     inner_tol: float = 1e-3,
     inner_iters: int = 20,
     timer: Optional[Timer] = None,
-    local_backend: str = "auto",
-    halo: str = "ppermute",
-    fuse: str = "leg",
     cutoff: int = 4,
 ) -> Tuple[jax.Array, List[float]]:
-    """``solve_refine`` with the inner f32 multigrid on the EXPLICIT spmd
-    engine (trapezoid/pod Pallas kernels, dist/spmd.py) instead of the
-    gspmd path — the f64 multi-chip story on the fast engine (round-2
-    VERDICT item 7).
+    """``solve_refine`` with the inner f32 multigrid on the explicit spmd
+    engine (dist/spmd.py) instead of the gspmd path.
 
     The f64 outer arrays are global alloc_shape arrays sharded on the
     finest level's spec; each outer step injects the scaled defect into
@@ -330,11 +307,8 @@ def solve_refine_spmd(
     newton = params.mode != Mode.LINEAR
     p32 = _params32(params, inner_iters, inner_tol)
 
-    with _x64_off():
-        init_fn, _, plan = build_spmd_solver(
-            p32, mesh, cutoff, local_backend, halo, fuse
-        )
-        sp_state = list(init_fn())
+    init_fn, _, plan = build_spmd_solver(p32, mesh, cutoff)
+    sp_state = list(init_fn())
     n_arr = 3 if newton else 2
     nd, nlev = plan.n_dist, plan.nlev
 
@@ -374,22 +348,20 @@ def solve_refine_spmd(
                     nv32g if l == 0
                     else jnp.zeros_like(sp_state[base + 2])
                 )
-        with _x64_off():
-            if newton:
-                # Restrict the frozen linearisation point to levels
-                # 1..L-2 — never the coarsest (the reference quirk,
-                # src/cpu/NewtonSolver.cpp:88-92).
-                _, restrict_nv_fn, _ = helpers
-                nvs = restrict_nv_fn(
-                    *[sp_state[n_arr * l + 2] for l in range(nlev)]
-                )
-                for l in range(nlev):
-                    sp_state[n_arr * l + 2] = nvs[l]
-            st, _, _ = solve_spmd(
-                p32, mesh, cutoff, state=tuple(sp_state), plan=plan,
-                local_backend=local_backend, check_every=inner_iters,
-                halo=halo, fuse=fuse,
+        if newton:
+            # Restrict the frozen linearisation point to levels
+            # 1..L-2 — never the coarsest (the reference quirk,
+            # src/cpu/NewtonSolver.cpp:88-92).
+            _, restrict_nv_fn, _ = helpers
+            nvs = restrict_nv_fn(
+                *[sp_state[n_arr * l + 2] for l in range(nlev)]
             )
+            for l in range(nlev):
+                sp_state[n_arr * l + 2] = nvs[l]
+        st, _, _ = solve_spmd(
+            p32, mesh, cutoff, state=tuple(sp_state), plan=plan,
+            check_every=inner_iters,
+        )
         sp_state = list(st)
         u = _accumulate_spmd(u, sp_state[0], s, dims)
         r_hi, res = _hi_residual(u, f_hi, hk)

@@ -1,7 +1,7 @@
 """Checkpoint / resume of solver state.
 
 The reference has no checkpointing (SURVEY.md §5 — its only persistence is
-the text dump consumed by plotter.py); this is the planned TPU-side addition:
+the text dump consumed by plotter.py); this adds
 save/restore of the solution state so long solves can resume.  Stored as a
 compressed .npz of the logical padded fields plus the config fingerprint —
 portable, no extra dependencies.
@@ -101,7 +101,7 @@ def load_state(path: str, params: GridParams):
 # Explicit-SPMD engine checkpoints (dist/spmd.py state tuples)
 # ---------------------------------------------------------------------------
 #
-# The spmd engines (per-leg and pod) carry their state as a flat tuple of
+# The spmd engine carries its state as a flat tuple of
 # global arrays in engine-specific allocations (mesh-aware on distributed
 # levels), so their checkpoints are engine/mesh-keyed: resuming requires the
 # same mesh shape and engine (the fingerprint enforces it — never a silent

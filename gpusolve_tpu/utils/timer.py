@@ -3,7 +3,7 @@
 The reference prints, per V-cycle, ``Took Xms`` plus named counters such as
 ``sumBuffer: Yms (Nx)`` and ``compile: Zms (Mx)`` (src/Timer.cpp:13-27,
 instrumentation sites src/sycl/SyclSolver.cpp:288,373 and sycl-gtx
-handler.h:64-67).  On TPU, accurate phase timing requires
+handler.h:64-67).  On an accelerator, accurate phase timing requires
 ``jax.block_until_ready`` at the stop edge; use sparingly (each block is a
 pipeline bubble) — the solve loop only reads the per-cycle norm.
 """

@@ -8,7 +8,7 @@ per-cycle times and residual sequences, and prints one table + a JSON file.
 
 Usage:
     python scripts/experiments.py [--sizes 63,127,255] [--modes 0,1,2]
-        [--backends auto,cpu-native] [--maxiter 10] [--json out.json]
+        [--backends xla,cpu-native] [--maxiter 10] [--json out.json]
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ def run_one(backend: str, mode: int, size: int, maxiter: int):
         stencil=Stencil.poisson_7pt(),
         print_progress=False,
         dtype="float32",
-        backend=backend,
     )
 
     if backend == "cpu-native":
@@ -76,10 +75,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", default="63,127,255")
     ap.add_argument("--modes", default="0,1,2")
-    ap.add_argument("--backends", default="auto")
+    ap.add_argument("--backends", default="xla")
     ap.add_argument("--maxiter", type=int, default=10)
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
+    if "xla" in args.backends.split(","):
+        from gpusolve_tpu.utils import compile_cache
+
+        compile_cache.setup()
 
     sizes = [int(s) for s in args.sizes.split(",")]
     modes = [int(m) for m in args.modes.split(",")]

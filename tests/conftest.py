@@ -1,7 +1,7 @@
 """Test environment: CPU backend with 8 virtual devices, float64 enabled.
 
-Multi-device sharding logic is tested the standard JAX way — faking a pod on
-the CPU backend via ``--xla_force_host_platform_device_count`` (SURVEY.md §4);
+Multi-device sharding logic is tested the standard JAX way — faking several
+devices on the CPU backend via ``--xla_force_host_platform_device_count`` (SURVEY.md §4);
 float64 is enabled so parity tests can match the float64 oracle to tight
 tolerances.  These env vars must be set before jax initialises.
 """
@@ -54,39 +54,10 @@ def _clear_jax_caches_between_modules():
     # The solver keeps its own AOT-executable cache (the reference-parity
     # "kernel cache"); drop it too so the freed executables are actually
     # collectable.
-    try:
-        from gpusolve_tpu.solver import vcycle as _vc
+    from gpusolve_tpu.solver import vcycle as _vc
 
-        _vc._compiled_cycles.clear()
-    except Exception:
-        pass
-    try:
-        from gpusolve_tpu.ops import pallas_vcycle2 as _pv2
-
-        _pv2._vcycle2_call.cache_clear()
-    except Exception:
-        pass
-    try:
-        from gpusolve_tpu.ops import pallas_vcycle as _pv
-
-        _pv._vcycle_call.cache_clear()
-    except Exception:
-        pass
+    _vc._compiled_cycles.clear()
     import gc
 
     gc.collect()
 
-
-def needs_sync_devices(n):
-    """Skip in-kernel-RDMA tests the host cannot simulate: interpret-mode
-    kernels whose devices block on each other's remote-DMA semaphores need
-    every device program resident at once, and the XLA CPU client runs at
-    most os.cpu_count() concurrently — beyond that the test would DEADLOCK
-    (dist/spmd.interpret_sync_capacity), not fail."""
-    from gpusolve_tpu.dist.spmd import interpret_sync_capacity
-
-    return pytest.mark.skipif(
-        interpret_sync_capacity() < n,
-        reason=f"in-kernel RDMA with {n} simulated devices deadlocks on a "
-        f"{interpret_sync_capacity()}-thread host",
-    )

@@ -2,7 +2,7 @@
 
 This is the in-repo stand-in for the reference's ``GpuSolve-cpu`` numerical
 behavior (src/cpu/CpuSolver.cpp, src/cpu/CpuGridData.cpp,
-src/cpu/NewtonSolver.cpp) — the parity contract the TPU framework is tested
+src/cpu/NewtonSolver.cpp) — the parity contract the framework is tested
 against (SURVEY.md §4).  It deliberately mirrors the reference's *pass
 structure* (e.g. jacobi = materialise full residual, then update), not the
 framework's fused formulation, so agreement between the two is meaningful.

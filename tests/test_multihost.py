@@ -1,8 +1,7 @@
 """Multi-host scaffolding smoke tests (SURVEY.md §5 distributed row).
 
-Real pods are unavailable here (BASELINE.md), so the plumbing is exercised
-two ways: in-process (single-process degrade + topology-mesh construction on
-the 8 virtual CPU devices) and, where the CPU backend's gloo collectives are
+The plumbing is exercised two ways: in-process (single-process degrade)
+and, where the CPU backend's gloo collectives are
 compiled in, a genuine 2-process ``jax.distributed.initialize`` run driven
 through subprocesses, each solving the same sharded problem and agreeing on
 the residual history.
@@ -30,17 +29,6 @@ def test_initialize_single_process_is_noop():
     assert multihost.is_multiprocess() is False
 
 
-def test_topology_mesh_virtual_devices():
-    mesh = multihost.make_topology_mesh()
-    assert mesh.axis_names == ("x", "y", "z")
-    assert mesh.devices.size == len(jax.devices())
-
-
-def test_topology_mesh_explicit_shape():
-    mesh = multihost.make_topology_mesh(shape=(2, 2, 2))
-    assert mesh.devices.shape == (2, 2, 2)
-
-
 _WORKER = textwrap.dedent(
     """
     import os, sys, json
@@ -52,11 +40,11 @@ _WORKER = textwrap.dedent(
     except Exception as e:
         print(json.dumps({"skip": f"no gloo: {e}"}))
         raise SystemExit(0)
-    from gpusolve_tpu.dist import multihost
+    from gpusolve_tpu.dist import make_mesh, multihost
     ok = multihost.initialize()  # env-driven: JAX_COORDINATOR_ADDRESS etc.
     assert ok, "initialize() returned False despite coordinator env"
     assert jax.process_count() == 2, jax.process_count()
-    mesh = multihost.make_topology_mesh()
+    mesh = make_mesh()
     assert mesh.devices.size == jax.device_count()
 
     from gpusolve_tpu.config import GridParams, Mode, Stencil

@@ -1,14 +1,14 @@
 """Round-3 surface tests: spmd CLI parity (progress-line format with
 ``Took Xms``, --save-state/--load-state, --check-every), auto engine
-selection, and fast-path-gating notes (--explain-backend).
-
-Round-2 VERDICT items 3 and 9.
+selection, and --explain-backend.
 """
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -135,8 +135,9 @@ def test_spmd_check_every_preserves_history(tmp_path):
 
 
 def test_corner_tap_stencil_gating_note(tmp_path):
-    """A corner-tap stencil (legal per the config format) drops the
-    shard-local Pallas path; the CLI must say so (VERDICT item 9)."""
+    """A corner-tap stencil (legal per the config format) takes the spmd
+    engine's fully assembled halo path; its history must match the
+    single-device solve's."""
     stencil = (
         "6 -1 -1 -1 -1 -1 -1\n"
         "0 1 -1 0 0 0 1\n"   # last tap offset (1, 1, 0): corner tap
@@ -144,9 +145,14 @@ def test_corner_tap_stencil_gating_note(tmp_path):
         "0 0 0 0 0 1 0\n"
     )
     conf = write_conf(tmp_path, mode=0, stencil=stencil, maxiter=2)
-    r = run_cli([conf, "--mesh", "2,1,1"])
-    assert r.returncode == 0, r.stderr
-    assert "corner/edge taps" in r.stderr, r.stderr
+    r = run_cli([conf, "--mesh", "2,2,1", "--explain-backend"])
+    one = run_cli([conf])
+    assert r.returncode == 0 and one.returncode == 0, r.stderr + one.stderr
+    assert "dist-engine=spmd" in r.stderr, r.stderr
+    got = [float(m[1]) for m in PROGRESS_RE.findall(r.stdout)]
+    want = [float(m[1]) for m in PROGRESS_RE.findall(one.stdout)]
+    assert len(got) == 2
+    assert got == pytest.approx(want, rel=1e-4)
 
 
 def test_explain_backend_single_device(tmp_path):
@@ -156,8 +162,12 @@ def test_explain_backend_single_device(tmp_path):
     assert "backend: single device" in r.stderr
 
 
-def test_float64_gating_note(tmp_path):
+def test_float64_gating_note(tmp_path, capsys):
+    """float64 runs the same device path as float32: no gating note."""
+    from gpusolve_tpu.cli import main
+
     conf = write_conf(tmp_path, mode=0, maxiter=2)
-    r = run_cli([conf, "--dtype", "float64", "--backend", "pallas"])
-    assert r.returncode == 0, r.stderr
-    assert "float32-only" in r.stderr
+    assert main([conf, "--dtype", "float64", "--explain-backend"]) == 0
+    err = capsys.readouterr().err
+    assert "backend: single device: XLA ops" in err
+    assert "note:" not in err

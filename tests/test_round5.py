@@ -1,6 +1,6 @@
-"""Round-5 surface tests: check_every reaching the Newton drivers
-(VERDICT r4 weak #8), the --platform escape hatch, and the cycle-aware
-bench cost model (ADVICE r4)."""
+"""Round-5 surface tests: check_every reaching the distributed Newton
+driver, the cycle-aware bench cost model, the gspmd note, and leg-engine
+checkpoint resume."""
 
 import os
 import re
@@ -10,7 +10,6 @@ import sys
 import numpy as np
 import pytest
 
-from gpusolve_tpu import build_grid, newton_solve
 from gpusolve_tpu.config import GridParams, Mode, Stencil
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -32,49 +31,6 @@ def make_params(dims=(15, 15, 15), maxiter=3, **kw):
     )
     defaults.update(kw)
     return GridParams(**defaults)
-
-
-def test_newton_batched_matches_unbatched(monkeypatch):
-    """check_every>1 on the single-device Newton driver: up to K outer
-    steps per dispatch (solver/newton._newton_batch) must reproduce the
-    per-step loop's residual history.  The unbatched reference runs the
-    XLA solver; the batch runs the interpret-mode mega-kernel inner, so
-    tolerances follow test_wfcycles' mega-vs-xla bound (Newton-amplified
-    like test_pod's)."""
-    from gpusolve_tpu.solver import vcycle as vc
-
-    p_ref = make_params(backend="xla")
-    _, hist_ref = newton_solve(build_grid(p_ref), p_ref)
-
-    # 15^3 sits under the mega-kernel's production size gate; lift it so
-    # the batch path engages at test scale (interpret mode).
-    monkeypatch.setattr(vc, "_fused_capable", lambda p, s: True)
-    p = make_params(backend="pallas")
-    state, hist = newton_solve(build_grid(p), p, check_every=3)
-    hr = np.asarray(hist_ref)
-    assert len(hist) == len(hist_ref)
-    np.testing.assert_allclose(
-        np.asarray(hist), hr, rtol=2e-3, atol=1e-6 * hr[0]
-    )
-    # The solution lives in newton_v and is finite.
-    nv = np.asarray(state.levels[0].newton_v)
-    assert np.isfinite(nv).all() and np.abs(nv).max() > 0.0
-
-
-def test_newton_batched_stops_where_unbatched_does(monkeypatch):
-    """The in-dispatch convergence gate must freeze the state at the same
-    outer iteration the per-step loop stops at (no overshoot), even when
-    maxiter leaves room for more steps."""
-    from gpusolve_tpu.solver import vcycle as vc
-
-    p_ref = make_params(backend="xla", maxiter=8, tol=1e-3)
-    _, hist_ref = newton_solve(build_grid(p_ref), p_ref)
-    assert len(hist_ref) - 1 < 8, "tol must trigger before maxiter"
-
-    monkeypatch.setattr(vc, "_fused_capable", lambda p, s: True)
-    p = make_params(backend="pallas", maxiter=8, tol=1e-3)
-    _, hist = newton_solve(build_grid(p), p, check_every=8)
-    assert len(hist) == len(hist_ref)
 
 
 def test_newton_spmd_check_every_matches():
@@ -124,34 +80,23 @@ def write_conf(tmp_path, mode=2, dim=15, maxiter=2):
     return str(conf)
 
 
-def test_cli_platform_flag(tmp_path):
-    """--platform cpu must pin the backend via the config knob (the env
-    var alone loses to plugin platform overrides, VERDICT r4 weak #7)."""
-    conf = write_conf(tmp_path, mode=0)
-    r = run_cli([conf, "--platform", "cpu", "--devices"])
-    assert r.returncode == 0, r.stderr
-    assert re.search(r"Device \[0\]:.*\(cpu\)", r.stdout), r.stdout
-
-
-def test_cli_platform_rejects_unknown(tmp_path):
-    conf = write_conf(tmp_path, mode=0)
-    r = run_cli([conf, "--platform", "not_a_platform"])
-    assert r.returncode == 1
-    assert "not_a_platform" in r.stderr
-
-
 def test_cli_newton_check_every(tmp_path):
-    """--check-every reaches the Newton outer loop: residuals must match
-    the unbatched run's."""
+    """--check-every reaches the distributed Newton driver's inner solves:
+    residuals must match the unbatched run's; without a mesh the flag is
+    refused."""
     conf = write_conf(tmp_path, mode=2, maxiter=2)
     prog = re.compile(r"newton iter: (\d+) residual: ([\d.e+-]+)")
-    r1 = run_cli([conf])
-    r2 = run_cli([conf, "--check-every", "2"])
+    mesh = ["--mesh", "2,1,1", "--dtype", "float64"]
+    r1 = run_cli([conf, *mesh])
+    r2 = run_cli([conf, *mesh, "--check-every", "2"])
     assert r1.returncode == 0 and r2.returncode == 0, r1.stderr + r2.stderr
     res1 = [float(m[1]) for m in prog.findall(r1.stdout)]
     res2 = [float(m[1]) for m in prog.findall(r2.stdout)]
     assert len(res1) == 2 and len(res2) == 2
     np.testing.assert_allclose(res2, res1, rtol=1e-12)
+    r3 = run_cli([conf, "--check-every", "2"])
+    assert r3.returncode == 1
+    assert "--check-every" in r3.stderr
 
 
 def test_cost_model_scales_with_cycle_type():
@@ -197,148 +142,9 @@ def test_gspmd_prints_demotion_note(tmp_path):
     assert "debugging/fallback" in r.stderr, r.stderr
 
 
-# ---------------------------------------------------------------------------
-# Leg-engine pv2 tail (round 5, VERDICT item 3): the replicated
-# sub-hierarchy as ONE mega-kernel launch behind a shallow fused prefix.
-# "auto" keeps the classic plan on CPU; tail="pv2" forces the path here.
-# ---------------------------------------------------------------------------
-
-def _tail_params(mode, dims=(63, 63, 63), maxiter=3, **kw):
-    defaults = dict(
-        maxiter=maxiter, tol=1e-30, grid_dim=dims, mode=mode,
-        pre_smoothing=3, post_smoothing=3, omega=0.8,
-        gamma=1.0 if mode != Mode.LINEAR else 0.0,
-        stencil=Stencil.poisson_7pt(), dtype="float32",
-        print_progress=False,
-    )
-    defaults.update(kw)
-    return GridParams(**defaults)
-
-
-@pytest.mark.parametrize(
-    "mode", [Mode.LINEAR, Mode.NONLINEAR, Mode.NEWTON],
-    ids=["linear", "nonlinear", "newton"],
-)
-def test_leg_tail_pv2_matches_classic(mode):
-    """tail='pv2' (jnp prefix + mega-kernel tail) must reproduce the
-    classic plan's histories (pv2-vs-XLA f32 reordering tolerance)."""
-    import jax
-
-    from gpusolve_tpu.dist import newton_solve_spmd, solve_spmd
-    from gpusolve_tpu.dist.mesh import make_mesh
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    p = _tail_params(mode)
-    mesh = make_mesh((2, 1, 1))
-    solver = newton_solve_spmd if mode == Mode.NEWTON else solve_spmd
-    _, h_off, _ = solver(p, mesh, cutoff=4, tail="off")
-    _, h_pv2, plan = solver(p, mesh, cutoff=4, tail="pv2")
-    assert plan.tail_pv2 is not None and plan.n_dist >= 1
-    ho = np.asarray(h_off)
-    np.testing.assert_allclose(
-        np.asarray(h_pv2), ho, rtol=2e-3, atol=1e-6 * ho[0]
-    )
-
-
-def test_leg_tail_pv2_wcycle():
-    """W cycles reach the junction twice per cycle: the second tail visit
-    must continue from the first's state (no zero-start)."""
-    import jax
-
-    from gpusolve_tpu.dist import solve_spmd
-    from gpusolve_tpu.dist.mesh import make_mesh
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    p = _tail_params(Mode.LINEAR, maxiter=2).replace(cycle_type="W")
-    mesh = make_mesh((2, 1, 1))
-    _, h_off, _ = solve_spmd(p, mesh, cutoff=4, tail="off")
-    _, h_pv2, plan = solve_spmd(p, mesh, cutoff=4, tail="pv2")
-    assert plan.tail_pv2 is not None
-    ho = np.asarray(h_off)
-    np.testing.assert_allclose(
-        np.asarray(h_pv2), ho, rtol=2e-3, atol=1e-6 * ho[0]
-    )
-
-
-def test_leg_tail_fused_junction_127():
-    """At 127^3 the interpret-mode shard kernels are eligible, so the
-    JUNCTION legs run fused: the down kernel's halved-block restrict IS
-    the tail root (no crop/pad), and the up leg slices the replicated
-    root directly.  Pins the direct-layout junction against the classic
-    plan (cf. the on-chip 511^3 run: leg engine 21.0 -> 14.3 ms/cycle)."""
-    import jax
-
-    from gpusolve_tpu.dist import solve_spmd
-    from gpusolve_tpu.dist.mesh import make_mesh
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    p = _tail_params(Mode.LINEAR, dims=(127, 127, 127), maxiter=2)
-    mesh = make_mesh((2, 1, 1))
-    _, h_off, _ = solve_spmd(
-        p, mesh, cutoff=4, tail="off", local_backend="pallas"
-    )
-    _, h_pv2, plan = solve_spmd(
-        p, mesh, cutoff=4, tail="pv2", local_backend="pallas"
-    )
-    assert plan.tail_pv2 is not None
-    assert 0 in plan.fused_down_levels, plan.fused_down_levels
-    assert plan.n_dist in plan.fused_up_levels, plan.fused_up_levels
-    ho = np.asarray(h_off)
-    np.testing.assert_allclose(
-        np.asarray(h_pv2), ho, rtol=5e-4, atol=1e-6 * ho[0]
-    )
-
-
-def test_leg_tail_auto_off_on_cpu():
-    """'auto' must keep the classic plan on interpret rigs (the CPU test
-    environment's histories and runtimes stay untouched)."""
-    import jax
-
-    from gpusolve_tpu.dist.spmd import build_spmd_solver
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    from gpusolve_tpu.dist.mesh import make_mesh
-
-    p = _tail_params(Mode.LINEAR)
-    _, _, plan = build_spmd_solver(p, make_mesh((2, 1, 1)), cutoff=4)
-    assert getattr(plan, "tail_pv2", None) is None
-
-
-def test_leg_tail_fused_junction_ysplit():
-    """Y-split mesh through the tail junction: the fused junction legs
-    must handle the folded-y decomposition (two-stage slab exchange,
-    ghy-extended windows) — the round-5 path tests above only cover
-    x-splits."""
-    import jax
-
-    from gpusolve_tpu.dist import solve_spmd
-    from gpusolve_tpu.dist.mesh import make_mesh
-
-    if len(jax.devices()) < 2:
-        pytest.skip("needs 2 virtual devices")
-    p = _tail_params(Mode.LINEAR, dims=(127, 127, 127), maxiter=2)
-    mesh = make_mesh((1, 2, 1))
-    _, h_off, _ = solve_spmd(
-        p, mesh, cutoff=4, tail="off", local_backend="pallas"
-    )
-    _, h_pv2, plan = solve_spmd(
-        p, mesh, cutoff=4, tail="pv2", local_backend="pallas"
-    )
-    assert plan.tail_pv2 is not None
-    ho = np.asarray(h_off)
-    np.testing.assert_allclose(
-        np.asarray(h_pv2), ho, rtol=5e-4, atol=1e-6 * ho[0]
-    )
-
-
 def test_leg_tail_checkpoint_roundtrip(tmp_path):
-    """Checkpoint save/resume through a tail plan (the TPU default since
-    round 5): the tail root's direct-layout state must round-trip and
-    the resumed history must continue bit-identically."""
+    """Checkpoint save/resume on the leg engine: the state must round-trip
+    and the resumed history must continue bit-identically."""
     import jax
 
     from gpusolve_tpu.dist import solve_spmd
@@ -350,19 +156,18 @@ def test_leg_tail_checkpoint_roundtrip(tmp_path):
 
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 virtual devices")
-    p = _tail_params(Mode.LINEAR, maxiter=4)
+    p = make_params(
+        dims=(63, 63, 63), maxiter=4, mode=Mode.LINEAR, tol=1e-30,
+        pre_smoothing=2, post_smoothing=2,
+    )
     mesh = make_mesh((2, 1, 1))
-    _, h_full, _ = solve_spmd(p, mesh, cutoff=4, tail="pv2")
-    st, h1, plan = solve_spmd(
-        p.replace(maxiter=2), mesh, cutoff=4, tail="pv2"
-    )
-    path = str(tmp_path / "ckpt_tail.npz")
-    save_state_spmd(
-        path, st, plan, p, "spmd/leg", iteration=2, history=h1
-    )
-    st2, _, h0, _ = load_state_spmd(path, p, plan, "spmd/leg")
+    _, h_full, _ = solve_spmd(p, mesh, cutoff=4)
+    st, h1, plan = solve_spmd(p.replace(maxiter=2), mesh, cutoff=4)
+    path = str(tmp_path / "ckpt_leg.npz")
+    save_state_spmd(path, st, plan, p, "spmd", iteration=2, history=h1)
+    st2, _, h0, _ = load_state_spmd(path, p, plan, "spmd")
     _, h2, _ = solve_spmd(
-        p.replace(maxiter=2), mesh, cutoff=4, tail="pv2",
+        p.replace(maxiter=2), mesh, cutoff=4,
         state=st2, plan=plan, initial_residual=h0[0],
     )
     np.testing.assert_array_equal(

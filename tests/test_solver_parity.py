@@ -83,8 +83,8 @@ def test_convergence_stops_early():
 
 
 def test_float32_tracks_oracle():
-    # f32 storage (the TPU default) must track the f64 oracle's contraction
-    # behavior (SURVEY.md §7 "f64 vs TPU").
+    # f32 storage (the default dtype) must track the f64 oracle's
+    # contraction behavior.
     p64 = make_params(Mode.LINEAR, dims=(31, 31, 31), maxiter=4)
     expected = orc.solve(orc.OracleGrid(p64))
     p32 = p64.replace(dtype="float32")

@@ -25,7 +25,6 @@ def make_params(dims=(31, 31, 31), maxiter=4, **kw):
         stencil=Stencil.poisson_7pt(),
         dtype="float64",
         print_progress=False,
-        backend="xla",
     )
     defaults.update(kw)
     return GridParams(**defaults)
@@ -46,9 +45,9 @@ def test_plan_shapes():
 
 
 def test_plan_folds_z_mesh_into_y():
-    """The z data axis is the TPU lane axis and is never split: a z mesh
-    axis folds into the y data decomposition (collectives ride the
-    flattened ('y','z') device-axis pair) — SpmdPlan docstring."""
+    """The engine never splits the z data axis: a z mesh axis folds into
+    the y data decomposition (collectives ride the flattened ('y','z')
+    device-axis pair) — SpmdPlan docstring."""
     p = make_params(dims=(63, 63, 63))
     plan = SpmdPlan(p, (2, 2, 2), cutoff=4)
     assert plan.device_mesh == (2, 2, 2)

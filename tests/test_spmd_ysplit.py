@@ -1,29 +1,26 @@
-"""Y-split fast-path tests (round-3 VERDICT item 1).
+"""Leg engine (dist/spmd.py) on 2 and 4 virtual devices against the
+single-device solver, across mesh shapes — x splits, y splits, both, and a
+z mesh axis folded into y — and all three modes, in float64.
 
-The trapezoid legs and their fused consumers now run on y-split meshes
-(ops/pallas_spmd._make_leg with ghy=8: 8-row y-face slabs, ghost rows
-recomputed per sweep), and a z mesh axis folds into the y data
-decomposition (dist/spmd.SpmdPlan) so 3-D torus meshes keep full lane
-occupancy.  Histories must match the jnp local-compute engine (same
-numerics, MXU-vs-VPU summation reordering only).
+Also pins the engine's shard-local transfers (stride-2 slice forms) to the
+single-device ops on whole-grid blocks.
 """
 
 import numpy as np
 import pytest
 
+import jax.numpy as jnp
+
+from gpusolve_tpu import build_grid, newton_solve, solve
 from gpusolve_tpu.config import GridParams, Mode, Stencil
 from gpusolve_tpu.dist import make_mesh
-from gpusolve_tpu.dist.spmd import (
-    build_spmd_solver,
-    newton_solve_spmd,
-    solve_spmd,
-)
+from gpusolve_tpu.dist import spmd
+from gpusolve_tpu.ops import xla
+
+MESHES = [(2, 1, 1), (1, 2, 1), (4, 1, 1), (2, 2, 1), (1, 2, 2), (2, 1, 2)]
 
 
-from conftest import needs_sync_devices  # noqa: E402
-
-
-def _params(mode, gamma, grid, maxiter=2):
+def _params(mode, grid=(31, 31, 31), maxiter=2, **kw):
     return GridParams(
         maxiter=maxiter,
         tol=1e-30,
@@ -32,118 +29,84 @@ def _params(mode, gamma, grid, maxiter=2):
         pre_smoothing=2,
         post_smoothing=2,
         omega=0.8,
-        gamma=gamma,
+        gamma=1.0,
         stencil=Stencil.poisson_7pt(),
         print_progress=False,
-        dtype="float32",
+        dtype="float64",
+        **kw,
     )
-
-
-def test_ysplit_trapezoid_engages():
-    """(1,2,1): the finest level must take the Pallas trapezoid path
-    (before round 3 the trapezoid gate required the y axis unsplit)."""
-    p = _params(Mode.LINEAR, 0.0, (31, 31, 127))
-    _, _, plan = build_spmd_solver(
-        p, make_mesh((1, 2, 1)), 2, "pallas", "ppermute", "leg"
-    )
-    assert plan.ps_levels[0]
-
-
-def test_ysplit_fused_legs_engage():
-    """(2,2,1) at a 16|bx geometry: the single-pass fused down and up
-    legs must engage under the y split."""
-    p = _params(Mode.LINEAR, 0.0, (63, 63, 255))
-    _, _, plan = build_spmd_solver(
-        p, make_mesh((2, 2, 1)), 2, "pallas", "ppermute", "leg"
-    )
-    assert plan.fused_down_levels, "fused down leg should engage"
-    assert plan.fused_up_levels, "fused up leg should engage"
 
 
 @pytest.mark.parametrize(
-    "mode, gamma",
-    [(Mode.LINEAR, 0.0), (Mode.NONLINEAR, 1.0), (Mode.NEWTON, 1.0)],
+    "mesh_shape", MESHES, ids=lambda s: "x".join(map(str, s))
+)
+@pytest.mark.parametrize(
+    "mode", [Mode.LINEAR, Mode.NONLINEAR, Mode.NEWTON],
     ids=["linear", "nonlinear", "newton"],
 )
-def test_ysplit_fused_legs_match_xla(mode, gamma):
-    """(2,2,1) mesh, geometry engaging the fused trapezoid down leg
-    (with the FAS tau fold) and the corr-first fused up leg, both under
-    the y split: histories must match the jnp engine."""
-    p = _params(mode, gamma, (63, 63, 255))
-    mesh = make_mesh((2, 2, 1))
-    solver = newton_solve_spmd if mode == Mode.NEWTON else solve_spmd
-    _, hist_x, _ = solver(p, mesh, cutoff=2, local_backend="xla")
-    _, hist_p, plan = solver(p, mesh, cutoff=2, local_backend="pallas")
-    assert plan.fused_down_levels and plan.fused_up_levels
-    rtol = 2e-4 if mode == Mode.NEWTON else 3e-5
-    np.testing.assert_allclose(hist_p, hist_x, rtol=rtol)
-
-
-def test_z_mesh_axis_folds_into_y_pallas():
-    """A (2,2,2) device mesh folds to a (2,4,1) data decomposition and
-    still runs the Pallas local path on the finest level."""
-    # cutoff=1 deepens the distributed hierarchy so the mesh-aware
-    # allocation's 2^n_dist rounding yields DMA-alignable blocks at this
-    # small test size (production sizes align at the default cutoff).
-    p = _params(Mode.LINEAR, 0.0, (31, 31, 127), maxiter=3)
-    mesh = make_mesh((2, 2, 2))
-    _, _, plan = build_spmd_solver(
-        p, mesh, 1, "pallas", "ppermute", "leg"
-    )
-    assert plan.mesh_shape == (2, 4, 1)
-    assert plan.ps_levels[0]
-    _, hist_x, _ = solve_spmd(p, mesh, cutoff=1, local_backend="xla")
-    _, hist_p, _ = solve_spmd(p, mesh, cutoff=1, local_backend="pallas")
-    np.testing.assert_allclose(hist_p, hist_x, rtol=3e-5)
-
-
-@needs_sync_devices(4)
-@pytest.mark.parametrize(
-    "mode, gamma",
-    [(Mode.LINEAR, 0.0), (Mode.NONLINEAR, 1.0)],
-    ids=["linear", "nonlinear"],
-)
-def test_pod_engine_ysplit_matches_xla(mode, gamma):
-    """--fuse pod on a y-split mesh: the whole-direction kernels run the
-    ghy=8 leg emitters with two-stage in-kernel RDMA (y slabs, then
-    y-extended x slabs staged in VMEM).  (31,31,127) on (2,2,1) picks
-    npod=2, so the mid-level in-kernel exchanges of fresh coarse outputs
-    fire too (geometry kept small: the pod kernels run in interpret mode
-    here and dominate CI time)."""
-    p = _params(mode, gamma, (31, 31, 127))
-    mesh = make_mesh((2, 2, 1))
-    _, hist_x, _ = solve_spmd(p, mesh, cutoff=2, local_backend="xla")
-    _, hist_pod, plan = solve_spmd(p, mesh, cutoff=2, fuse="pod")
-    assert plan.npod >= 2, "geometry chosen to exercise mid-level RDMA"
-    assert plan.mesh_shape == (2, 2, 1)
-    np.testing.assert_allclose(hist_pod, hist_x, rtol=3e-5)
-
-
-@needs_sync_devices(8)
-def test_pod_engine_zfold_newton():
-    """NEWTON on the pod engine over a folded (2,2,2) device mesh
-    (data mesh (2,4,1); npod=1 keeps the ~12-inner-cycle outer driver
-    affordable in interpret mode — the npod=2 exchange machinery is
-    covered by the linear/nonlinear variants above)."""
-    p = _params(Mode.NEWTON, 1.0, (31, 31, 127), maxiter=1)
-    mesh = make_mesh((2, 2, 2))
-    _, hist_x, _ = newton_solve_spmd(
-        p, mesh, cutoff=2, local_backend="xla"
-    )
-    _, hist_pod, plan = newton_solve_spmd(p, mesh, cutoff=2, fuse="pod")
-    assert plan.mesh_shape == (2, 4, 1)
-    np.testing.assert_allclose(hist_pod, hist_x, rtol=2e-4)
-
-
-def test_pod_engine_gates_interpret_sync_capacity(monkeypatch):
-    """Hosts that cannot run every pod device program concurrently must get
-    a clear error, not the deadlock MULTICHIP_r03 died of."""
-    monkeypatch.setenv("GPUSOLVE_INTERPRET_SYNC_CAPACITY", "1")
-    p = _params(Mode.LINEAR, 0.0, (31, 31, 63))  # unique key: no lru reuse
-    mesh = make_mesh((2, 1, 1))
-    with pytest.raises(RuntimeError, match="in-kernel remote DMAs"):
-        solve_spmd(p, mesh, cutoff=2, fuse="pod")
-    with pytest.raises(RuntimeError, match="in-kernel remote DMAs"):
-        solve_spmd(
-            p, mesh, cutoff=2, local_backend="pallas", halo="rdma"
+def test_leg_engine_matches_single_device(mode, mesh_shape):
+    p = _params(mode)
+    if mode == Mode.NEWTON:
+        _, ref = newton_solve(build_grid(p), p)
+        _, hist, plan = spmd.newton_solve_spmd(
+            p, make_mesh(mesh_shape), cutoff=2
         )
+    else:
+        _, ref = solve(build_grid(p), p)
+        _, hist, plan = spmd.solve_spmd(p, make_mesh(mesh_shape), cutoff=2)
+    assert plan.n_dist >= 2
+    np.testing.assert_allclose(hist, ref, rtol=1e-10)
+
+
+def test_z_mesh_axis_folds_into_y():
+    """A (2,2,2) device mesh folds to a (2,4,1) data decomposition."""
+    p = _params(Mode.LINEAR, grid=(31, 31, 63))
+    plan = spmd.SpmdPlan(p, (2, 2, 2), cutoff=2)
+    assert plan.mesh_shape == (2, 4, 1)
+    assert plan.names == ("x", ("y", "z"), "z")
+    _, ref = solve(build_grid(p), p)
+    _, hist, _ = spmd.solve_spmd(p, make_mesh((2, 2, 2)), cutoff=2)
+    np.testing.assert_allclose(hist, ref, rtol=1e-10)
+
+
+@pytest.mark.parametrize("dims", [(15, 15, 15), (31, 15, 7), (7, 31, 15)])
+def test_local_restriction_matches_single_device_op(dims):
+    """On one shard the ghost-extended block is the whole padded grid, so
+    the separable slice restriction must equal the 27-point op."""
+    rng = np.random.default_rng(0)
+    p = _params(Mode.LINEAR, grid=dims)
+    d0, d1 = p.level_dims()[:2]
+    fine = np.zeros(tuple(n + 2 for n in d0))
+    fine[1:-1, 1:-1, 1:-1] = rng.standard_normal(d0)
+    want = xla.restrict_full_weighting(
+        fine, d0, d1, tuple(n + 2 for n in d1)
+    )
+    # Block layout: local cell j <-> global padded index j, so the
+    # ghost-extended block starts one cell before the padded origin; the
+    # coarse block holds the coarse padded indices [0, n1 + 2).
+    cb = tuple(n + 2 for n in d1)
+    asm = np.pad(fine, [(1, 2 * c - n - 1) for c, n in zip(cb, d0)])
+    got = np.asarray(spmd._restrict_local(jnp.asarray(asm), cb))
+    inner = (slice(1, -1),) * 3
+    np.testing.assert_allclose(
+        got[inner], np.asarray(want)[inner], rtol=1e-13
+    )
+
+
+@pytest.mark.parametrize("dims", [(15, 15, 15), (31, 15, 7), (7, 31, 15)])
+def test_local_prolongation_matches_single_device_op(dims):
+    """The interleaved slice prolongation equals the 4-pass trilinear op on
+    the whole grid (one shard, coarse block assembled with one ghost)."""
+    rng = np.random.default_rng(1)
+    p = _params(Mode.LINEAR, grid=dims)
+    d0, d1 = p.level_dims()[:2]
+    coarse = np.zeros(tuple(n + 2 for n in d1))
+    coarse[1:-1, 1:-1, 1:-1] = rng.standard_normal(d1)
+    want = np.asarray(
+        xla.interpolate(coarse, d1, d0, tuple(n + 2 for n in d0))
+    )
+    fb = tuple(n + 2 for n in d0)  # fine block = the padded fine grid
+    asm = np.pad(coarse, [(1, 1)] * 3)  # ghost below, room above
+    got = np.asarray(spmd._prolong_local(jnp.asarray(asm), fb))
+    inner = (slice(1, -1),) * 3
+    np.testing.assert_allclose(got[inner], want[inner], rtol=1e-13)

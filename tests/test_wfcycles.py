@@ -4,7 +4,7 @@ The reference only has V-cycles (src/cpu/CpuSolver.cpp:85-139); the
 framework adds the standard gamma-cycle W (recurse twice per level) and F
 (recurse F-then-V) schedules via ``GridParams.cycle_type``.  Parity chain:
 the float64 XLA solver must match the float64 oracle's recursion exactly;
-the wavefront mega-kernel must match the XLA solver in interpret mode; and
+the explicit spmd engine must match the single-device solver; and
 per-cycle contraction must not degrade vs V (W/F visit coarse levels more,
 so they converge at least as fast per outer cycle on this SPD problem).
 """
@@ -15,7 +15,6 @@ import pytest
 import oracle as orc
 from gpusolve_tpu import build_grid, newton_solve, solve
 from gpusolve_tpu.config import GridParams, Mode, Stencil
-from gpusolve_tpu.ops import pallas_vcycle2 as pv2
 
 
 def make_params(mode, cycle, dims=(15, 15, 15), maxiter=4, **kw):
@@ -71,45 +70,24 @@ def test_wf_contraction_not_worse_than_v(cycle):
     assert histories[cycle][-1] <= histories["V"][-1] * 1.01
 
 
-@pytest.mark.parametrize("cycle", ["W", "F"])
+@pytest.mark.parametrize("dims", [(15, 7, 31), (31, 15, 15)])
+@pytest.mark.parametrize("cycle", ["V", "W", "F"])
 @pytest.mark.parametrize(
-    "mode", [Mode.LINEAR, Mode.NEWTON, Mode.NONLINEAR],
-    ids=["linear", "newton", "nonlinear"],
+    "mode", [Mode.LINEAR, Mode.NONLINEAR, Mode.NEWTON],
+    ids=["linear", "nonlinear", "newton"],
 )
-def test_wf_megakernel_matches_xla(mode, cycle):
-    # The wavefront kernel's W/F schedules vs the XLA recursion
-    # (interpret mode, f32).
-    from gpusolve_tpu.solver import vcycle as vc
-    from test_vcycle2 import make_params as mk2, seeded_state, xla_cycles
-
-    p = mk2(mode, (15, 15, 15), cycle_type=cycle)
-    assert pv2.supported(p), "15^3 W/F should fit the pass budget"
-    state = seeded_state(p)
-    want_state, want = xla_cycles(state, p, 2)
-    fields, norms = pv2.vcycle2_fused(
-        state.levels, p, max_cycles=2, interpret=True
-    )
-    got = [float(np.sqrt(n)) for n in np.asarray(norms)]
-    for g, w in zip(got, want):
-        assert g == pytest.approx(w, rel=2e-4)
-    v_want = np.asarray(want_state.levels[0].v)
-    v_got = np.asarray(fields[0][0])
-    scale = np.abs(v_want).max() + 1e-30
-    np.testing.assert_allclose(v_got, v_want, rtol=2e-4, atol=2e-5 * scale)
-
-
-def test_pass_budget_gates_deep_w():
-    # W at many levels explodes the pass count; supported() must refuse
-    # rather than build an unbounded Mosaic program.
-    p = make_params(
-        Mode.LINEAR, "W", dims=(511, 511, 511), dtype="float32"
-    )
-    assert pv2._cycle_pass_count(p) > pv2._MAX_PASSES
-    assert not pv2.supported(p)
-    # F stays affordable at the same depth.
-    pf = p.replace(cycle_type="F")
-    assert pv2._cycle_pass_count(pf) <= pv2._MAX_PASSES
-    assert pv2.supported(pf)
+def test_cycle_mode_matrix_vs_oracle(mode, cycle, dims):
+    """Every schedule in every mode on non-cubic grids, against the f64
+    oracle's recursion."""
+    p = make_params(mode, cycle, dims=dims, maxiter=2)
+    if mode == Mode.NEWTON:
+        expected = orc.newton_solve(orc.OracleGrid(p))
+        _, history = newton_solve(build_grid(p), p)
+    else:
+        expected = orc.solve(orc.OracleGrid(p))
+        _, history = solve(build_grid(p), p)
+    assert len(history) == len(expected) == 3
+    np.testing.assert_allclose(history, expected, rtol=1e-8)
 
 
 def test_cycle_type_validation():
@@ -127,7 +105,6 @@ def test_wf_on_spmd_engine_matches_gspmd(cycle):
 
     p = make_params(
         Mode.NONLINEAR, cycle, dims=(31, 31, 31), maxiter=3,
-        backend="xla",
     )
     _, ref = solve(build_grid(p), p)
     _, hist, _ = solve_spmd(p, make_mesh((2, 2, 2)), cutoff=2)
